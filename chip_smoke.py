@@ -16,9 +16,18 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    and c = 4, its LARGE 32 h cell and a c = 32 cell.  Every sweep is held
    against the port's host engine (``backend="numpy"``): p95, compliance
    and counts bit-equal, means within 1e-12 relative;
-5. each kernel again at every main-path shape: timed, and held against its
-   plain version on the same inputs;
-6. one JSON line of kernel numbers, then the result line.
+5. the pipeline path, with every launch count set to 0 first:
+   ``repro_torch.dag_run`` at full size on the card — ``validate_pipeline``
+   on the RAG tandem (chained Lindley kernel), ``plan_pipeline`` and
+   ``validate_pipeline`` on its fork-join variant (chained Lindley launches
+   and a device join), the 8-stage agentic sweep (Kiefer-Wolfowitz
+   completion kernel), and the diurnal Elastico and static runs in the
+   event-heap ``DagSimulator``.  Every sweep is held against the host
+   engine (``backend="numpy"``): all grids equal; the diurnal run must give
+   the JAX package's compliance, accuracy and switch count;
+6. each kernel again at every shape either path gave it: timed, and held
+   against its plain version on the same inputs;
+7. one JSON line of kernel numbers, then the result line.
 
 Any failure exits nonzero and prints no result line; so does a host
 without a card, and a directory that holds this script but not the repo.
@@ -55,6 +64,13 @@ C32 = dict(duration_s=120.0, rates=(64.0, 160.0, 256.0), replications=16)
 K1_SOURCE = "src/repro_torch/csrc/lindley_scan.cu"
 K1_REPLACES = "src/repro/kernels/lindley_scan/kernel.py:87"
 KW_REPLACES = "src/repro/serving/fastsim.py:796"
+K2_SOURCE = "src/repro_torch/csrc/chained_lindley.cu"
+K2_REPLACES = "src/repro/kernels/lindley_scan/kernel.py:128"
+KW_CHAIN_REPLACES = "src/repro/serving/fastsim.py:861"
+
+# the JAX package's diurnal pipeline run (benchmarks/dag_bench.py at full
+# size): dynamic compliance and accuracy to 5 places, switch count
+DIURNAL_EXPECTED = (0.99756, 0.83205, 470)
 
 
 class SmokeFailure(Exception):
@@ -108,6 +124,43 @@ def k1_bound(counts, n: int, b: int, c: int, clock_hz: float):
     return t_ops * 1e3, "operations"
 
 
+def k2_bound(counts, n: int, b: int, stages: int, clock_hz: float):
+    """Least time for one chained Lindley launch, and what bounds it.
+
+    Bytes: the arrival and the J services of each live row read once,
+    counts read, the (J, N, B) completions written.  Operations: the
+    larger of all fp64 operations (5 a row and stage) over the fp64 rate
+    and the longest dependency path through a lane, counted from the
+    kernel's source: one max a row along a stage's m carry, plus a sub, a
+    max and an add to pass one row down each stage, DEPENDENT_CYCLES each."""
+    live = int(counts.sum())
+    nbytes = 8 * live * (1 + stages) + 8 * b + 8 * stages * n * b
+    chain = ((int(counts.max()) + 3 * stages) * DEPENDENT_CYCLES
+             / clock_hz)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(live * stages * 5 / FP64_FLOPS, chain)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def kw_chain_bound(counts, n: int, b: int, c: int, clock_hz: float):
+    """Least time for one Kiefer-Wolfowitz completion launch: a and s of
+    each live row read, counts read, the (N, B) completions written; the
+    longest lane's chain of dependent steps (max, add, and the min that
+    makes the next F[0] for c > 1) at DEPENDENT_CYCLES each, or all fp64
+    operations over the fp64 rate if that is longer."""
+    live = int(counts.sum())
+    nbytes = 16 * live + 8 * b + 8 * n * b
+    chain = (2 if c == 1 else 3) * DEPENDENT_CYCLES / clock_hz
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(live * (2 + 2 * (c - 1)) / FP64_FLOPS,
+                int(counts.max()) * chain)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
 def compare_sweeps(name: str, dev, host) -> None:
     import numpy as np
 
@@ -125,11 +178,17 @@ def compare_sweeps(name: str, dev, host) -> None:
 def run(torch) -> dict:
     import numpy as np
 
+    from repro_torch import dag_run
     from repro_torch.core.planner import Planner
     from repro_torch.kernels import build
-    from repro_torch.kernels.lindley_scan import lindley_scan, lindley_scan_ref
+    from repro_torch.kernels.chained_lindley import (chained_lindley_scan,
+                                                     chained_lindley_scan_ref)
+    from repro_torch.kernels.lindley_scan import (kw_chain, kw_chain_ref,
+                                                  lindley_scan,
+                                                  lindley_scan_ref)
     from repro_torch.quickstart import (SLO_S as QS_SLO, make_profiler,
                                         search, spike_arrivals, spike_run)
+    from repro_torch.serving import dag as dag_mod
     from repro_torch.serving import fastsim
     from repro_torch.workflows.surrogate import RagSurrogate
 
@@ -183,6 +242,41 @@ def run(torch) -> dict:
         print(f"random ragged grid ({n}, {b}) c={c}: kernel == plain "
               f"(max abs err {err})")
 
+    def timed_plain(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def pipeline_grid(n, b, stages, c):
+        """Sorted arrivals, +inf past each lane's count; zero-padded
+        (stages, N, B) services."""
+        counts = rng.integers(0, n + 1, size=b)
+        counts[0], counts[1] = n, 0
+        A = np.full((n, b), np.inf)
+        S = np.zeros((stages, n, b))
+        for j, k in enumerate(counts):
+            A[:k, j] = np.sort(rng.uniform(0.0, k * 1.1 / c, size=k))
+            S[:, :k, j] = rng.exponential(1.0, size=(stages, k))
+        return (torch.from_numpy(A).to(device),
+                torch.from_numpy(S).to(device), torch.from_numpy(counts))
+
+    for stages in (1, 3, 16, 17):
+        A, S, counts = pipeline_grid(600, 150, stages, 1)
+        out = chained_lindley_scan(A, S, counts)
+        check(torch.equal(out, chained_lindley_scan_ref(A, S, counts)),
+              f"chained_lindley_scan != plain version (J={stages})")
+        print(f"random ragged grid (600, 150) J={stages}: "
+              f"chained_lindley_scan == plain")
+    for c in (1, 2, 8, 32):
+        A, S, counts = pipeline_grid(600, 150, 1, c)
+        out = kw_chain(A, S[0], counts, num_servers=c)
+        check(torch.equal(out, kw_chain_ref(A, S[0], counts,
+                                            num_servers=c)),
+              f"kw_chain != plain version (c={c})")
+        print(f"random ragged grid (600, 150) c={c}: kw_chain == plain")
+
     # -- 4. the main path ------------------------------------------------------
     cells = {}          # cell -> (grid kwargs, c, launches in the main path)
 
@@ -205,7 +299,13 @@ def run(torch) -> dict:
               f"host {t_host:.3f} s, p95/compliance/counts bit-equal, "
               f"means within {MEAN_RTOL:g}")
 
-    lindley_scan.launches = 0
+    counted = (lindley_scan, chained_lindley_scan, kw_chain)
+
+    def zero_counts():
+        for k in counted:
+            k.launches = 0
+
+    zero_counts()
     t_main = time.perf_counter()
 
     surrogate = RagSurrogate(seed=0)
@@ -278,7 +378,55 @@ def run(torch) -> dict:
     check(all(v[2] > 0 for v in cells.values()),
           "a main-path phase did not go through the kernel")
 
-    # -- 5. every main-path shape: timed, held against the plain version ------
+    # -- 5. the pipeline path ------------------------------------------------
+    zero_counts()
+    t = time.perf_counter()
+    dag_out = dag_run.run()                      # device=None: the card
+    t_dag = time.perf_counter() - t
+    dag_totals = {k.__name__: k.launches for k in counted}
+    print(f"pipeline path: {t_dag:.1f} s on {dag_out.device}, launches "
+          f"{dag_totals}")
+    print(dag_run.report(dag_out))
+    check(dag_totals["chained_lindley_scan"] > 0,
+          "the pipeline path never launched chained_lindley_scan")
+    check(dag_totals["kw_chain"] > 0,
+          "the pipeline path never launched kw_chain")
+    check(dag_out.launches["rag_tandem"]["chained_lindley_scan"] == 1,
+          "rag_tandem did not run as one chained_lindley_scan launch")
+    check(dag_out.launches["fork_join"]["chained_lindley_scan"] == 3,
+          "fork_join did not run as three chained_lindley_scan launches")
+    check(dag_out.launches["agentic_8stage"]["kw_chain"] == 8,
+          "agentic_8stage did not run as eight kw_chain launches")
+    check(dag_out.fork_join_plan.table.ladder_size == 7,
+          "the fork-join plan did not admit all 7 rungs")
+    for name, cell in dag_out.cells.items():
+        dev_sweep = dag_out.sweeps[name]
+        t = time.perf_counter()
+        host = dag_run.sweep_cell(cell, backend="numpy")
+        t_host = time.perf_counter() - t
+        check(dev_sweep == host,
+              f"{name}: the card's sweep differs from the host engine's")
+        K, L = len(cell.rungs), len(cell.arrival_rates_qps)
+        check(np.shape(dev_sweep.mean_latency_s) == (K, L)
+              and np.isfinite(dev_sweep.mean_latency_s).all()
+              and np.isfinite(dev_sweep.p95_latency_s).all(),
+              f"{name}: sweep grid not finite or of the wrong shape")
+        print(f"{name}: {K * L * cell.replications} lanes, "
+              f"{dev_sweep.num_requests} requests, card "
+              f"{dag_out.seconds[name]:.3f} s, host {t_host:.3f} s, every "
+              f"grid equal to the host engine's")
+    dyn = dag_out.diurnal["dynamic"]
+    got = (round(dyn["slo_compliance"], 5), round(dyn["mean_accuracy"], 5),
+           dyn["switches"])
+    check(got == DIURNAL_EXPECTED,
+          f"diurnal run gave {got}, expected {DIURNAL_EXPECTED}")
+    check(dyn["slo_compliance"]
+          > dag_out.diurnal["static_accurate"]["slo_compliance"]
+          and dyn["mean_accuracy"]
+          > dag_out.diurnal["static_fast"]["mean_accuracy"],
+          "pipeline switching acceptance failed")
+
+    # -- 6. every main-path shape: timed, held against the plain version ------
     entries = []
     for name, (kw, c, launches) in cells.items():
         kw = dict(kw)
@@ -321,6 +469,91 @@ def run(torch) -> dict:
               f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms * 100:.2f}% of bound, kernel == plain; "
               f"host draws {t_draws:.3f} s, device engine {t_engine:.3f} s")
+
+    for name, cell in dag_out.cells.items():
+        topo = cell.dag.topological_order()
+        rates = list(cell.arrival_rates_qps)
+        t = time.perf_counter()
+        traces = dag_mod._pipeline_traces(rates, cell.duration_s,
+                                          cell.replications, cell.seed)
+        A, S, counts = dag_mod._pipeline_draws(
+            cell.dag, topo, [tuple(r) for r in cell.rungs], rates, traces,
+            seed=cell.seed)
+        t_draws = time.perf_counter() - t
+        t = time.perf_counter()
+        At = torch.from_numpy(A).to(device).t().contiguous()
+        St = torch.from_numpy(S).to(device).transpose(1, 2).contiguous()
+        ct = torch.from_numpy(counts)
+        sink_pos = list(topo).index(cell.dag.sink())
+        calls = []
+        sink = fastsim._pipeline_grid(
+            At, St, ct, dag_mod._pipeline_topo_meta(cell.dag, topo),
+            out_pos=(sink_pos,), record=calls)[sink_pos].t().cpu()
+        t_engine = time.perf_counter() - t
+        live = torch.arange(sink.shape[1])[None, :] < ct[:, None]
+        check(bool(torch.isfinite(sink[live]).all()
+                   and torch.isinf(sink[~live]).all()),
+              f"{name}: sink completions not finite where live, or not "
+              f"+inf past the counts")
+        per_kernel = {}
+        for kname, arr, svc, c in calls:
+            n, b = arr.shape
+            if kname == "chained_lindley_scan":
+                fn = lambda: chained_lindley_scan(arr, svc, ct)
+                ref, plain_ms = timed_plain(
+                    lambda: chained_lindley_scan_ref(arr, svc, ct))
+                bound_ms, bound_by = k2_bound(counts, n, b, svc.shape[0],
+                                              clock_hz)
+                what = {"stages": int(svc.shape[0])}
+            else:
+                fn = lambda: kw_chain(arr, svc, ct, num_servers=c)
+                ref, plain_ms = timed_plain(
+                    lambda: kw_chain_ref(arr, svc, ct, num_servers=c))
+                bound_ms, bound_by = kw_chain_bound(counts, n, b, c,
+                                                    clock_hz)
+                what = {"num_servers": int(c)}
+            out = fn()
+            check(torch.equal(out, ref),
+                  f"{name}: {kname} != plain version at {what}")
+            ms = cuda_ms(torch, fn, 20)
+            live = ref.isfinite()
+            err = float((out[live] - ref[live]).abs().max()) \
+                if bool(live.any()) else 0.0
+            agg = per_kernel.setdefault(kname, {
+                "name": kname, "cell": name,
+                "route": "cuda",
+                "source": K2_SOURCE if kname == "chained_lindley_scan"
+                else K1_SOURCE,
+                "replaces": K2_REPLACES if kname == "chained_lindley_scan"
+                else KW_CHAIN_REPLACES,
+                "launches": dag_out.launches[name][kname],
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "bound_by": bound_by, "library_ms": None,
+                "calls": []})
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            agg["ms"] += ms
+            agg["plain_ms"] += plain_ms
+            agg["bound_ms"] += bound_ms
+            if bound_by == "bytes":
+                agg["bound_by"] = "bytes"
+            agg["calls"].append(dict(shape=f"N={n} x B={b}", **what,
+                                     ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by))
+            print(f"{name}: {kname} N={n} B={b} {what}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}), {bound_ms / ms * 100:.2f}% of bound, "
+                  f"kernel == plain")
+        for agg in per_kernel.values():
+            agg["shape"] = agg["calls"][0]["shape"]
+            key = ("stages" if agg["name"] == "chained_lindley_scan"
+                   else "num_servers")
+            agg[key] = [call[key] for call in agg["calls"]]
+            check(agg["launches"] == len(agg["calls"]),
+                  f"{name}: {agg['name']} launched {agg['launches']} times "
+                  f"in the pipeline path, {len(agg['calls'])} in the replay")
+        entries.extend(per_kernel.values())
+        print(f"{name}: host draws {t_draws:.3f} s, device engine "
+              f"{t_engine:.3f} s")
     return {"kind": kind, "entries": entries}
 
 

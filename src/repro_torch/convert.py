@@ -8,7 +8,10 @@ the degraded-capacity tables.  :func:`plan_to_numpy` flattens a plan into
 Python numbers, strings, tuples and dicts tagged with their class names;
 :func:`plan_from_numpy` rebuilds the port's plan from that data.  Neither
 looks at which package built the plan, so a plan made by the JAX package
-crosses into the port unchanged.
+crosses into the port unchanged.  A workflow DAG's
+:class:`~repro_torch.serving.dag.PipelinePlan` (the DAG, its stages and
+the pipeline ladder) crosses the same way: :func:`plan_to_numpy` flattens
+it, :func:`pipeline_plan_from_numpy` rebuilds it.
 """
 
 from __future__ import annotations
@@ -27,10 +30,19 @@ from .core.aqm import (
 )
 from .core.pareto import BatchProfile, LatencyProfile, ParetoPoint
 from .core.planner import DeploymentPlan
+from .serving.dag import (
+    PipelinePlan,
+    PipelinePolicy,
+    PipelinePolicyTable,
+    StageSpec,
+    WorkflowDAG,
+)
 
 _TYPES: Dict[str, type] = {cls.__name__: cls for cls in (
     DeploymentPlan, AQMPolicyTable, SwitchingPolicy, HysteresisSpec,
-    MixPolicyTable, MixPolicy, ParetoPoint, LatencyProfile, BatchProfile)}
+    MixPolicyTable, MixPolicy, ParetoPoint, LatencyProfile, BatchProfile,
+    PipelinePlan, PipelinePolicyTable, PipelinePolicy, WorkflowDAG,
+    StageSpec)}
 
 _TYPE_KEY = "__type__"
 _DICT_KEY = "__items__"
@@ -92,4 +104,14 @@ def plan_from_numpy(d: Dict[str, Any]) -> DeploymentPlan:
     if not isinstance(plan, DeploymentPlan):
         raise TypeError(f"plan data describes a {type(plan).__name__}, "
                         f"not a DeploymentPlan")
+    return plan
+
+
+def pipeline_plan_from_numpy(d: Dict[str, Any]) -> PipelinePlan:
+    """The port's :class:`PipelinePlan` from :func:`plan_to_numpy`'s plain
+    data of a pipeline plan."""
+    plan = _rebuild(d)
+    if not isinstance(plan, PipelinePlan):
+        raise TypeError(f"plan data describes a {type(plan).__name__}, "
+                        f"not a PipelinePlan")
     return plan

@@ -19,8 +19,10 @@ this makes thousands of validation scenarios per plan affordable.
 
 The port of ``repro/core/planner.py``: :meth:`Planner.plan`,
 :meth:`Planner.validate`, :class:`DeploymentPlan` and
-:class:`PlanValidation`.  The pipeline planner (``plan_pipeline``,
-``validate_pipeline``) needs the workflow-DAG sweep and is not ported yet.
+:class:`PlanValidation`, and the pipeline planner
+(:meth:`Planner.plan_pipeline`, :meth:`Planner.validate_pipeline`), whose
+sweep (:func:`repro_torch.serving.dag.sweep_pipeline`) runs its chained
+recursion in the port's CUDA kernels.
 """
 
 from __future__ import annotations
@@ -345,6 +347,92 @@ class Planner:
             dominated=dominated,
             mix_table=mix_table,
             degraded_tables=degraded,
+        )
+
+    def plan_pipeline(
+        self,
+        dag: "WorkflowDAG",  # noqa: F821 - imported lazily below
+        *,
+        slo_p95_s: float,
+        rungs: Optional[Sequence[Sequence[int]]] = None,
+    ) -> "PipelinePlan":  # noqa: F821
+        """Derive the *pipeline-level* switching ladder for a workflow DAG.
+
+        The compound analogue of :meth:`plan`: instead of a Pareto front of
+        whole-request configurations, the input is a
+        :class:`repro_torch.serving.dag.WorkflowDAG` whose stages each carry
+        their own (mean, p95) config ladders, and the output ladder's
+        rungs are per-stage configuration *vectors* with switching
+        thresholds stated at each rung's bottleneck stage
+        (:func:`repro_torch.serving.dag.derive_pipeline_policies`).  Uses
+        the Planner's ``slack_buffer_s`` and ``hysteresis`` exactly as
+        :meth:`plan` does, so a single-stage DAG reproduces the
+        homogeneous table's thresholds bit-for-bit."""
+        from ..serving.dag import PipelinePlan, derive_pipeline_policies
+
+        table = derive_pipeline_policies(
+            dag,
+            slo_p95_s=slo_p95_s,
+            slack_buffer_s=self.slack_buffer_s,
+            hysteresis=self.hysteresis,
+            rungs=rungs,
+        )
+        if not table.policies:
+            raise ValueError(
+                "no pipeline rung can meet the SLO even unloaded "
+                f"(all {len(table.excluded)} rungs excluded)")
+        return PipelinePlan(dag=dag, table=table)
+
+    def validate_pipeline(
+        self,
+        plan: "PipelinePlan",  # noqa: F821
+        *,
+        arrival_rates_qps: Optional[Sequence[float]] = None,
+        load_fractions: Sequence[float] = (0.5, 0.75, 0.9),
+        duration_s: float = 120.0,
+        replications: int = 4,
+        seed: int = 0,
+        backend: str = "torch",
+        device=None,
+    ) -> "PipelineSweep":  # noqa: F821
+        """Validate a pipeline ladder against chained-recursion simulation.
+
+        The DAG analogue of :meth:`validate`: replays every rung
+        (statically pinned per-stage config vector) against a grid of
+        Poisson arrival rates via the chained Lindley/Kiefer-Wolfowitz
+        fast path (:func:`repro_torch.serving.dag.sweep_pipeline`), and
+        returns the simulated sojourn grids next to the queueing-network
+        prediction (per-stage Allen-Cunneen with departure-SCV
+        propagation, :func:`repro_torch.serving.dag.pipeline_sojourn`).
+        The default rates are ``load_fractions`` of the fastest rung's
+        bottleneck drain rate ``c_b / s_b`` — the load range the pipeline
+        ladder is supposed to cover.
+
+        ``backend`` and ``device`` are forwarded to the sweep engine:
+        ``"torch"`` (default) runs the recursion in the port's kernels on
+        ``device`` (None is the CUDA card, and raises without one);
+        ``"numpy"`` runs the reference loop on the host.  The grids agree
+        bit for bit across the two."""
+        from ..serving.dag import sweep_pipeline
+
+        if not plan.table.policies:
+            raise ValueError("plan has no admitted rungs to validate")
+        if arrival_rates_qps is None:
+            fastest = plan.table.policies[0]
+            b = fastest.bottleneck_stage
+            cap = (plan.dag.stages[b].num_servers
+                   / plan.dag.stages[b].mean_s[fastest.stage_indices[b]])
+            arrival_rates_qps = [f * cap for f in load_fractions]
+        return sweep_pipeline(
+            plan.dag,
+            [pol.stage_indices for pol in plan.table.policies],
+            arrival_rates_qps=[float(r) for r in arrival_rates_qps],
+            duration_s=duration_s,
+            replications=replications,
+            slo_s=plan.table.slo_p95_s,
+            seed=seed,
+            backend=backend,
+            device=device,
         )
 
     def validate(

@@ -18,6 +18,13 @@
 // Rows at or past counts[b] come out 0.  The same pass sums waits and
 // latencies per lane in time order and counts lat <= slo.
 //
+// A second entry, `kw_chain_f64`, runs the same recursion for one pooled
+// stage of a workflow pipeline and writes the completion ct of every row
+// (+inf at rows past counts[b]) instead of waits and latencies: the
+// counterpart of the JAX package's `_jax_kw_chain` (repro/serving/
+// fastsim.py).  A tandem feeds these completions to the next stage, and
+// they must be bit-equal to the numpy reference's, which `lat + a` is not.
+//
 // What bounds it.  Each row of a lane depends on the row before it, so a
 // lane is a chain of n dependent steps (max then add, plus one min for
 // c > 1); the bytes are 32 per slot (a, s read; wait, lat written).  With
@@ -36,6 +43,7 @@
 // version.  A time-parallel max-plus scan for narrow batches is later work.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -111,6 +119,53 @@ lindley_kernel(const double* __restrict__ arrivals,
   ok[lane] = hits;
 }
 
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+kw_chain_kernel(const double* __restrict__ arrivals,
+                const double* __restrict__ services,
+                const int64_t* __restrict__ counts, int64_t n, int64_t b,
+                double* __restrict__ comps) {
+  const int64_t lane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= b) return;
+  int64_t cnt = counts[lane];
+  cnt = cnt < 0 ? 0 : (cnt > n ? n : cnt);
+
+  double F[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) F[j] = 0.0;
+
+  for (int64_t i0 = 0; i0 < cnt; i0 += kTile) {
+    double a[kTile], s[kTile];
+#pragma unroll
+    for (int t = 0; t < kTile; ++t) {
+      const int64_t i = i0 + t;
+      a[t] = 0.0;
+      s[t] = 0.0;
+      if (i < cnt) {
+        a[t] = arrivals[i * b + lane];
+        s[t] = services[i * b + lane];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTile; ++t) {
+      const int64_t i = i0 + t;
+      if (i < cnt) {
+        const double st = fmax(a[t], F[0]);
+        const double ct = st + s[t];
+        double cur = ct;
+#pragma unroll
+        for (int j = 1; j < C; ++j) {
+          F[j - 1] = fmin(F[j], cur);
+          cur = fmax(F[j], cur);
+        }
+        F[C - 1] = cur;
+        comps[i * b + lane] = ct;
+      }
+    }
+  }
+  for (int64_t i = cnt; i < n; ++i) comps[i * b + lane] = CUDART_INF;
+}
+
 struct Args {
   const double* arrivals;
   const double* services;
@@ -134,6 +189,26 @@ cudaError_t launch(int c, const Args& x, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+struct ChainArgs {
+  const double* arrivals;
+  const double* services;
+  const int64_t* counts;
+  int64_t n, b;
+  double* comps;
+};
+
+template <int C>
+cudaError_t launch_chain(int c, const ChainArgs& x, cudaStream_t stream) {
+  if (c != C) {
+    if constexpr (C < kMaxServers) return launch_chain<C + 1>(c, x, stream);
+    return cudaErrorInvalidValue;
+  }
+  const unsigned grid = (unsigned)((x.b + kThreads - 1) / kThreads);
+  kw_chain_kernel<C><<<grid, kThreads, 0, stream>>>(
+      x.arrivals, x.services, x.counts, x.n, x.b, x.comps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lindley_scan_f64(int device, const void* arrivals,
@@ -150,6 +225,21 @@ extern "C" int lindley_scan_f64(int device, const void* arrivals,
                (double*)lats, (double*)wait_sum, (double*)lat_sum,
                (int64_t*)ok};
   return (int)launch<1>(c, x, (cudaStream_t)stream);
+}
+
+// arrivals, services and comps (N, B), counts (B,) int64; all on `device`,
+// contiguous.  Returns a cudaError_t code (0 on success).
+extern "C" int kw_chain_f64(int device, const void* arrivals,
+                            const void* services, const void* counts,
+                            int64_t n, int64_t b, int c, void* comps,
+                            void* stream) {
+  if (c < 1 || c > kMaxServers || n < 0 || b < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const ChainArgs x{(const double*)arrivals, (const double*)services,
+                    (const int64_t*)counts, n, b, (double*)comps};
+  return (int)launch_chain<1>(c, x, (cudaStream_t)stream);
 }
 
 extern "C" const char* lindley_scan_error_string(int code) {

@@ -26,7 +26,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
 
 # kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"lindley_scan": "lindley_scan.cu"}
+SOURCES: Dict[str, str] = {"lindley_scan": "lindley_scan.cu",
+                           "chained_lindley": "chained_lindley.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -4,6 +4,8 @@ On a CUDA tensor it launches ``csrc/lindley_scan.cu`` on PyTorch's current
 stream, or raises; on a CPU tensor it runs the plain version
 (:func:`.ref.lindley_scan_ref`).  ``lindley_scan.launches`` counts kernel
 launches, so a run can show that it went through the kernel.
+:func:`kw_chain` wraps the same source's completion entry the same way
+(plain version :func:`.ref.kw_chain_ref`, count ``kw_chain.launches``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import math
 import torch
 
 from .. import build
-from .ref import LindleyOut, lindley_scan_ref
+from .ref import LindleyOut, kw_chain_ref, lindley_scan_ref
 
 MAX_SERVERS = 32   # the kernel's comparator chain is instantiated for 1..32
 
@@ -28,6 +30,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, _vp, _vp, _vp, ctypes.c_double, _i64, _i64,
             ctypes.c_int, _vp, _vp, _vp, _vp, _vp, _vp]
         lib.lindley_scan_f64.restype = ctypes.c_int
+        lib.kw_chain_f64.argtypes = [
+            ctypes.c_int, _vp, _vp, _vp, _i64, _i64, ctypes.c_int, _vp, _vp]
+        lib.kw_chain_f64.restype = ctypes.c_int
         lib.lindley_scan_error_string.argtypes = [ctypes.c_int]
         lib.lindley_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -100,3 +105,34 @@ def lindley_scan(arrivals: torch.Tensor, services: torch.Tensor,
 
 
 lindley_scan.launches = 0
+
+
+def kw_chain(arrivals: torch.Tensor, services: torch.Tensor,
+             counts: torch.Tensor, *, num_servers: int = 1) -> torch.Tensor:
+    """Completion times (N, B) of one FIFO stage of ``num_servers``
+    servers over (N, B) fp64 grids: rows ``0 .. counts[b] - 1`` of lane b,
+    ``+inf`` past them.  ``counts`` is a host int64 tensor, checked on the
+    host.  CUDA grids go to the kernel, CPU grids to the plain version."""
+    _check(arrivals, services, counts, num_servers)
+    if arrivals.device.type == "cpu":
+        return kw_chain_ref(arrivals, services, counts,
+                            num_servers=num_servers)
+    if arrivals.device.type != "cuda":
+        raise ValueError(f"unsupported device {arrivals.device}")
+    lib = _library()
+    n, b = arrivals.shape
+    counts = counts.to(arrivals.device).contiguous()
+    comps = torch.empty_like(arrivals)
+    stream = torch.cuda.current_stream(arrivals.device).cuda_stream
+    err = lib.kw_chain_f64(
+        arrivals.device.index, arrivals.data_ptr(), services.data_ptr(),
+        counts.data_ptr(), n, b, int(num_servers), comps.data_ptr(), stream)
+    if err != 0:
+        msg = lib.lindley_scan_error_string(err).decode()
+        raise RuntimeError(f"kw_chain kernel launch failed: {msg} "
+                           f"(cuda error {err})")
+    kw_chain.launches += 1
+    return comps
+
+
+kw_chain.launches = 0

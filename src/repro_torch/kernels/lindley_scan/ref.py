@@ -5,6 +5,8 @@ on torch B-vectors, in the kernel's op order: every value it returns is
 bit-equal to the kernel's (not the cumsum/cummax closed form, which rounds
 differently).  The tests hold it against the JAX package's ``lindley_scan``
 and ``_jax_kw``; ``chip_smoke.py`` holds the kernel against it on the card.
+:func:`kw_chain_ref` is the plain version of the kernel's completion entry,
+held against ``_jax_kw_chain``.
 """
 
 from __future__ import annotations
@@ -68,3 +70,32 @@ def lindley_scan_ref(arrivals: torch.Tensor, services: torch.Tensor,
         lat_sum = lat_sum + lat
         ok = ok + ((lat <= slo) & active)
     return LindleyOut(waits, lats, wait_sum, lat_sum, ok)
+
+
+def kw_chain_ref(arrivals: torch.Tensor, services: torch.Tensor,
+                 counts: torch.Tensor, *, num_servers: int = 1
+                 ) -> torch.Tensor:
+    """Completion times (N, B) of one FIFO stage of ``num_servers`` servers.
+
+    The recursion of :func:`lindley_scan_ref` (``st = max(a, F[0])``,
+    ``ct = st + s``, the ``_jax_kw`` comparator chain), returning ``ct`` for
+    rows ``0 .. counts[b] - 1`` of lane b and ``+inf`` past them, so padded
+    slots stay trailing through the sorts of a pipeline sweep."""
+    n, b = arrivals.shape
+    c = int(num_servers)
+    zeros = torch.zeros(b, dtype=arrivals.dtype, device=arrivals.device)
+    free = [zeros] * c
+    comps = torch.full_like(arrivals, math.inf)
+    rows = min(int(counts.max()), n) if b and n else 0
+    counts = counts.to(arrivals.device)
+    for i in range(rows):
+        st = torch.maximum(arrivals[i], free[0])
+        ct = st + services[i]
+        cur, nxt = ct, []
+        for j in range(1, c):
+            nxt.append(torch.minimum(free[j], cur))
+            cur = torch.maximum(free[j], cur)
+        nxt.append(cur)
+        free = nxt
+        comps[i] = torch.where(counts > i, ct, math.inf)
+    return comps

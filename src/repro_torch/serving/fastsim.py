@@ -26,6 +26,16 @@ counts do too; means agree to 1e-12 relative (the sums may run in
 another order).  Nothing chooses the host by grid size: ``"torch"`` runs
 on the device it is given (``device=None`` is the CUDA card, and raises
 without one).
+
+The workflow-DAG recursion lives here too: :func:`chained_lindley` pushes
+one arrival stream through a chain of FIFO stages, and
+:func:`_pipeline_grid` evaluates a whole batched DAG on the device — runs
+of c = 1 stages in the chained Lindley kernel
+(:func:`repro_torch.kernels.chained_lindley.chained_lindley_scan`), pooled
+stages in the Kiefer-Wolfowitz completion kernel
+(:func:`repro_torch.kernels.lindley_scan.kw_chain`), sorts, permutations
+and joins as device tensor ops.  Both replay the numpy reference's exact
+op order, so completions are bit-equal to ``backend="numpy"``.
 """
 
 from __future__ import annotations
@@ -33,15 +43,17 @@ from __future__ import annotations
 import hashlib
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.lindley_scan import MAX_SERVERS, lindley_scan
+from ..kernels.chained_lindley import chained_lindley_scan
+from ..kernels.lindley_scan import MAX_SERVERS, kw_chain, lindley_scan
 
-__all__ = ["simulate_batch", "SweepResult", "lognormal_params", "BACKENDS"]
+__all__ = ["simulate_batch", "SweepResult", "lognormal_params", "BACKENDS",
+           "chained_lindley"]
 
 BACKENDS = ("torch", "numpy")
 
@@ -376,3 +388,181 @@ def simulate_batch(
         duration_s=duration_s,
         slo_s=slo_s,
     )
+
+
+def chained_lindley(
+    arrivals: Sequence[float],
+    stage_services: Sequence[np.ndarray],
+    *,
+    num_servers: Optional[Sequence[int]] = None,
+    backend: str = "torch",
+    device=None,
+) -> np.ndarray:
+    """Tandem-network recursion: push one arrival stream through a chain of
+    FIFO stages, each stage's departures feeding the next stage's arrivals
+    (the workflow-DAG fast path).
+
+    ``arrivals`` is the external arrival time per request (any order);
+    ``stage_services[j]`` holds stage j's service times *in that stage's
+    dispatch order* (FIFO on the stage's own arrival times, stable by
+    request index on ties).  Single-server stages use the closed form
+    ``C = P + cummax(A - (P - S))``; pooled stages the Kiefer-Wolfowitz
+    sorted-workload recursion.
+
+    ``backend="torch"`` (the default) runs the chain through
+    :func:`_pipeline_grid` on ``device`` (None is the CUDA card, and raises
+    without one; ``"cpu"`` runs the kernels' plain versions) after one host
+    argsort of the arrivals; ``"numpy"`` is the reference loop.  The two are
+    bit-equal whenever no two requests reach a stage at the same instant
+    (the device keeps a pooled stage's successors in its dispatch order,
+    the reference re-sorts by request index).
+
+    Returns a ``(num_stages, n)`` array of completion times aligned to the
+    *original* request order.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected one of {BACKENDS})")
+    A = np.asarray(arrivals, dtype=float)
+    n = A.size
+    servers = ([1] * len(stage_services) if num_servers is None
+               else [int(c) for c in num_servers])
+    if len(servers) != len(stage_services):
+        raise ValueError("need one server count per stage")
+    if any(c < 1 for c in servers):
+        raise ValueError("server counts must be >= 1")
+    stages: List[np.ndarray] = []
+    for j, svc in enumerate(stage_services):
+        S = np.asarray(svc, dtype=float)
+        if S.shape != (n,):
+            raise ValueError(
+                f"stage {j}: service array shape {S.shape} != ({n},)")
+        stages.append(S)
+    if backend == "torch":
+        if max(servers, default=1) > MAX_SERVERS:
+            raise ValueError(f"the torch engine supports num_servers <= "
+                             f"{MAX_SERVERS}; use backend='numpy'")
+        dev = resolve_device(device)
+        out = np.empty((len(stages), n), dtype=float)
+        if n == 0 or not stages:
+            return out
+        order = np.argsort(A, kind="stable")
+        At = torch.from_numpy(A[order][:, None]).to(dev)
+        St = torch.from_numpy(np.stack(stages)[:, :, None]).to(dev)
+        meta = tuple(((j - 1,) if j else (), c, False)
+                     for j, c in enumerate(servers))
+        comps = _pipeline_grid(At, St, torch.tensor([n]), meta)
+        out[:, order] = torch.stack(comps)[:, :, 0].cpu().numpy()
+        return out
+    out = np.empty((len(stage_services), n), dtype=float)
+    cur = A
+    for j, (S, c) in enumerate(zip(stages, servers)):
+        order = np.argsort(cur, kind="stable")
+        a = cur[order]
+        if c == 1:
+            P = np.cumsum(S)
+            M = np.maximum.accumulate(a - (P - S))
+            C = P + M
+        else:
+            C = np.empty(n, dtype=float)
+            free = np.zeros(c, dtype=float)
+            for i in range(n):
+                f0 = free[0]
+                st = a[i] if a[i] > f0 else f0
+                ct = st + S[i]
+                free[0] = ct
+                free.sort()
+                C[i] = ct
+        nxt = np.empty(n, dtype=float)
+        nxt[order] = C
+        out[j] = nxt
+        cur = nxt
+    return out
+
+
+def _pipeline_grid(A: torch.Tensor, S: torch.Tensor, counts: torch.Tensor,
+                   topo_meta: Sequence[Tuple], *,
+                   out_pos: Optional[Sequence[int]] = None,
+                   record: Optional[list] = None) -> list:
+    """Per-stage completions of a batched workflow DAG, on ``A``'s device.
+
+    ``A`` is the (N, B) grid of each lane's sorted external arrivals
+    (``+inf`` past ``counts[b]``), ``S`` the (J, N, B) dispatch-order
+    service grids by topological position, ``counts`` the host int64 live
+    rows per lane.  ``topo_meta`` has one ``(preds, c, needs_sort)`` entry
+    per topological position, ``preds`` the predecessor positions (empty:
+    external arrivals).  Returns a list of (N, B) completion grids in
+    request order, indexed by position; ``out_pos`` limits which are made
+    (the others stay ``None``).  ``record``, when a list, gets one
+    ``(kernel name, arrivals, services, num_servers)`` entry per kernel
+    call, so a caller can replay each call's inputs.
+
+    Maximal runs of c = 1 stages fed straight by their predecessor run as
+    one chained Lindley call; each pooled stage runs as one
+    Kiefer-Wolfowitz completion call.  Permutations are lazy: a stage's
+    completions stay in its dispatch order beside the permutation back to
+    request index (``perm[t, b]``), and request order is made only at joins
+    and at the requested outputs.  A stage fed by a c = 1 stage, or by a
+    join of unpermuted c = 1 stages, needs no sort (c = 1 completions are
+    non-decreasing in dispatch order); any other stage sorts its input with
+    a stable device sort, whose permutation is the unique one numpy's
+    stable argsort gives.  Joins are element-wise maxima.
+    """
+    J = len(topo_meta)
+    disp: list = [None] * J      # (dispatch-order completions, perm or None)
+    req_cache: dict = {}
+
+    def as_request(j):
+        vals, perm = disp[j]
+        if perm is None:
+            return vals
+        out = req_cache.get(j)
+        if out is None:
+            out = torch.empty_like(vals).scatter_(0, perm, vals)
+            req_cache[j] = out
+        return out
+
+    i = 0
+    while i < J:
+        preds, c, _ = topo_meta[i]
+        seg = [i]
+        if c == 1:
+            k = i + 1
+            while (k < J and topo_meta[k][0] == (k - 1,)
+                   and topo_meta[k][1] == 1):
+                seg.append(k)
+                k += 1
+        if not preds:
+            arr, perm, in_sorted = A, None, True
+        elif len(preds) == 1:
+            arr, perm = disp[preds[0]]
+            in_sorted = topo_meta[preds[0]][1] == 1
+        else:
+            arr = as_request(preds[0])
+            for p in preds[1:]:
+                arr = torch.maximum(arr, as_request(p))
+            perm = None
+            in_sorted = all(topo_meta[p][1] == 1 and disp[p][1] is None
+                            for p in preds)
+        if not in_sorted:
+            arr, rel = torch.sort(arr, dim=0, stable=True)
+            perm = rel if perm is None else torch.gather(perm, 0, rel)
+        arr = arr.contiguous()
+        if c == 1:
+            svc = S[seg[0]:seg[-1] + 1]
+            C = chained_lindley_scan(arr, svc, counts)
+            if record is not None:
+                record.append(("chained_lindley_scan", arr, svc, 1))
+            for o, j in enumerate(seg):
+                disp[j] = (C[o], perm)
+        else:
+            C = kw_chain(arr, S[i], counts, num_servers=c)
+            if record is not None:
+                record.append(("kw_chain", arr, S[i], c))
+            disp[i] = (C, perm)
+        i = seg[-1] + 1
+    wanted = range(J) if out_pos is None else out_pos
+    out: list = [None] * J
+    for j in wanted:
+        out[j] = as_request(j)
+    return out

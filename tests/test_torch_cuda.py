@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.lindley_scan import lindley_scan, lindley_scan_ref
+from repro_torch.kernels.chained_lindley import (chained_lindley_scan,
+                                                 chained_lindley_scan_ref)
+from repro_torch.kernels.lindley_scan import (kw_chain, kw_chain_ref,
+                                              lindley_scan, lindley_scan_ref)
 from repro_torch.serving import fastsim
+from repro_torch.serving.dag import StageSpec, WorkflowDAG, sweep_pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +74,67 @@ def test_wrapper_rejects_mixed_devices(card):
         lindley_scan(A, S.cpu(), counts)
     with pytest.raises(ValueError, match="host tensor"):
         lindley_scan(A, S, counts.to(card))
+
+
+def pipeline_grid(n, b, stages, c, seed, device):
+    """Ragged lanes of sorted arrivals at load ~0.9 of c servers, +inf past
+    each lane's count, and (stages, N, B) unit-mean exponential services."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, n + 1, size=b)
+    counts[0], counts[1] = n, 0
+    A = np.full((n, b), np.inf)
+    S = np.zeros((stages, n, b))
+    for j, k in enumerate(counts):
+        A[:k, j] = np.sort(rng.uniform(0.0, k * 1.1 / c, size=k))
+        S[:, :k, j] = rng.exponential(1.0, size=(stages, k))
+    return (torch.from_numpy(A).to(device), torch.from_numpy(S).to(device),
+            torch.from_numpy(counts))
+
+
+@pytest.mark.parametrize("stages", [1, 3, 8, 16, 17])
+def test_chained_kernel_equals_plain_version(card, stages):
+    A, S, counts = pipeline_grid(500, 150, stages, 1, seed=stages,
+                                 device=card)
+    before = chained_lindley_scan.launches
+    out = chained_lindley_scan(A, S, counts)
+    torch.cuda.synchronize()
+    assert chained_lindley_scan.launches == before + (1 if stages <= 16
+                                                      else 2)
+    ref = chained_lindley_scan_ref(A, S, counts)
+    assert torch.equal(out, ref)
+    assert torch.isinf(out[:, :, 1]).all()          # the empty lane
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 32])
+def test_kw_chain_kernel_equals_plain_version(card, c):
+    A, S, counts = pipeline_grid(600, 200, 1, c, seed=100 + c, device=card)
+    before = kw_chain.launches
+    out = kw_chain(A, S[0], counts, num_servers=c)
+    torch.cuda.synchronize()
+    assert kw_chain.launches == before + 1
+    ref = kw_chain_ref(A, S[0], counts, num_servers=c)
+    assert torch.equal(out, ref)
+
+
+def _stage(name, m, c):
+    return StageSpec(name=name, mean_s=(m, 0.7 * m), p95_s=(1.6 * m, m),
+                     num_servers=c)
+
+
+@pytest.mark.parametrize("kind", ["tandem", "fork_join"])
+def test_pipeline_sweep_on_the_card_equals_the_host_engine(card, kind):
+    if kind == "tandem":
+        dag = WorkflowDAG.tandem([_stage("a", 0.05, 1), _stage("b", 0.08, 2),
+                                  _stage("c", 0.04, 1), _stage("d", 0.06, 1)])
+    else:
+        dag = WorkflowDAG.fork_join(
+            [_stage("x", 0.05, 1), _stage("y", 0.07, 3)],
+            _stage("join", 0.06, 1), tail=[_stage("t", 0.04, 1)])
+    rungs = [(0,) * dag.num_stages, (1,) * dag.num_stages]
+    kw = dict(arrival_rates_qps=(6.0, 14.0), duration_s=200.0,
+              replications=3, slo_s=0.5, seed=5)
+    before = (chained_lindley_scan.launches, kw_chain.launches)
+    dev = sweep_pipeline(dag, rungs, device=card, **kw)
+    assert chained_lindley_scan.launches > before[0]
+    host = sweep_pipeline(dag, rungs, backend="numpy", **kw)
+    assert dev == host
