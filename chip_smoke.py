@@ -27,7 +27,18 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    the JAX package's compliance, accuracy and switch count;
 6. each kernel again at every shape either path gave it: timed, and held
    against its plain version on the same inputs;
-7. one JSON line of kernel numbers, then the result line.
+7. the serving path, with every launch count set to 0 first:
+   ``repro_torch.launch.serve.run`` serves internlm2-1.8b at full width
+   and depth (bf16, weights drawn on the card from seed 0) to 8 requests
+   of 2048-token prompts, prefilling both rungs (full attention with a bf16
+   KV cache; a 512 window with an int8 cache) and decoding 64 tokens with
+   the middle-third rung switch.  Checked: finite logits, the switch
+   schedule, the exact launch counts of the RMSNorm, prefill attention and
+   decode attention kernels; each of those kernels at every shape the path
+   gave it, timed and held against its plain version on the same inputs;
+   and the decode attention kernel against the prefill one through the
+   model (prefill then one decode step against prefill of one more token);
+8. one JSON line of kernel numbers, then the result line.
 
 Any failure exits nonzero and prints no result line; so does a host
 without a card, and a directory that holds this script but not the repo.
@@ -35,6 +46,7 @@ without a card, and a directory that holds this script but not the repo.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -67,6 +79,40 @@ KW_REPLACES = "src/repro/serving/fastsim.py:796"
 K2_SOURCE = "src/repro_torch/csrc/chained_lindley.cu"
 K2_REPLACES = "src/repro/kernels/lindley_scan/kernel.py:128"
 KW_CHAIN_REPLACES = "src/repro/serving/fastsim.py:861"
+
+K3_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+K3_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:25"
+K4_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+K4_REPLACES = "src/repro/kernels/flash_attention/kernel.py:96"
+K5_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+K5_REPLACES = "src/repro/kernels/decode_attention/kernel.py:82"
+
+# H100 SXM data sheet: dense bf16 tensor-core rate, fp32 rate outside them
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# the serve cell: internlm2-1.8b at full size, eight concurrent requests of
+# 2k-token (RAG-style) prompts, 64 tokens each, fast rung window 512 + int8
+SERVE_ARCH = "internlm2-1.8b"
+SERVE = dict(batch=8, prompt_len=2048, tokens=64, window=512, seed=0)
+# the kernels against their plain versions: tests/test_kernels.py's
+# tolerances (rtol = atol), by dtype name
+MODEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# prefill(prompt + t) against prefill(prompt) then decode_step(t), last
+# position's logits, RMS of the difference over RMS of the logits.  Both
+# paths run bf16 activations (8 significant bits, 2^-8 ~ 0.4 % a rounding)
+# and round at different places in every one of 24 layers: the projections
+# of one row against 2049 rows (other GEMM tilings), K4's summation order
+# against K5's; the differences add up like a random walk to ~1 %.  A
+# wrong mask, position or cache slot would move the logits by about their
+# own size (relative RMS ~1).
+CONSISTENCY_REL_RMS = 3e-2
+# the same check on an fp32 copy of the model (same seed, full width and
+# depth): 24 significant bits instead of 8, so the same rounding
+# differences stay near 1e-5 relative even if the random network amplifies
+# them as much as the bf16 run suggests; a wrong mask, position or slot
+# still moves the logits by about their own size.
+CONSISTENCY_REL_RMS_FP32 = 1e-3
 
 # the JAX package's diurnal pipeline run (benchmarks/dag_bench.py at full
 # size): dynamic compliance and accuracy to 5 places, switch count
@@ -156,6 +202,15 @@ def kw_chain_bound(counts, n: int, b: int, c: int, clock_hz: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(live * (2 + 2 * (c - 1)) / FP64_FLOPS,
                 int(counts.max()) * chain)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def bound(nbytes: float, ops: float, flops: float):
+    """Least time in ms for ``nbytes`` moved and ``ops`` done at ``flops``,
+    and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -554,7 +609,220 @@ def run(torch) -> dict:
         entries.extend(per_kernel.values())
         print(f"{name}: host draws {t_draws:.3f} s, device engine "
               f"{t_engine:.3f} s")
+
+    # -- 7. the serving path ---------------------------------------------------
+    entries.extend(serve_phase(torch, counted))
     return {"kind": kind, "entries": entries}
+
+
+def timed_once(torch, fn):
+    """Output and host-clock ms of one call that ends in a synchronise."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def prefill_decode_gap(torch, model, prompt):
+    """Last-position logits of ``prefill(prompt)`` then ``decode_step(t)``
+    (K5 over the cache K4's prefill left) against ``prefill(prompt + t)``
+    (K4), t the greedy token: relative RMS and max abs of the difference,
+    and the share of the batch whose greedy next token agrees."""
+    logits0, state = model.prefill({"tokens": prompt},
+                                   cache_len=prompt.shape[1] + 1)
+    tok = torch.argmax(logits0, -1)
+    l_dec, _ = model.decode_step(state, tok)
+    l_pre, _ = model.prefill({"tokens": torch.cat([prompt, tok[:, None]], 1)})
+    diff = l_dec.float() - l_pre.float()
+    rel = float(diff.pow(2).mean().sqrt() / l_pre.float().pow(2).mean().sqrt())
+    agree = float((l_dec.argmax(-1) == l_pre.argmax(-1)).float().mean())
+    return rel, float(diff.abs().max()), agree
+
+
+def serve_phase(torch, counted) -> list:
+    """Phase 7: the serving path at full size, its checks, and one kernel
+    entry for every (kernel, shape) the path launched."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.registry import get_config
+
+    model_kernels = (rmsnorm, flash_attention, decode_attention)
+    # warm-up at full width on a small batch: GEMM handles, kernel libraries
+    base = get_config(SERVE_ARCH)
+    serve.run(base, **dict(SERVE, batch=1, prompt_len=64, tokens=3))
+    for k in counted + model_kernels:
+        k.launches = 0
+    for k in model_kernels:
+        k.record = {}
+    t = time.perf_counter()
+    res = serve.run(base, **SERVE)                # device=None: the card
+    t_serve = time.perf_counter() - t
+    records = {k.__name__: k.record for k in model_kernels}
+    totals = {k.__name__: k.launches for k in model_kernels}
+    for k in model_kernels:
+        k.record = None
+    print(serve.report(res))
+    print(f"serve path: {t_serve:.1f} s (weights drawn on the card "
+          f"included), launches {totals}")
+
+    cfg = res.config
+    n_tok, batch, n_layers = SERVE["tokens"], SERVE["batch"], cfg.num_layers
+    check(cfg.num_layers == 24 and cfg.d_model == 2048
+          and cfg.num_heads == 16 and cfg.num_kv_heads == 8
+          and cfg.head_dim == 128 and cfg.d_ff == 8192
+          and cfg.vocab_size == 92544 and cfg.dtype == "bfloat16",
+          "the serve phase did not run internlm2-1.8b's full config")
+    third = n_tok // 3
+    check(res.switches == [(third, "accurate", "fast", 10),
+                           (2 * third, "fast", "accurate", 0)],
+          f"switch log {res.switches} is not the reference schedule")
+    check(res.active == (["accurate"] * third + ["fast"] * third
+                         + ["accurate"] * (n_tok - 2 * third)),
+          "the active rung does not follow the switch schedule")
+    check(res.tokens.shape == (n_tok, batch)
+          and bool(((res.tokens >= 0)
+                    & (res.tokens < cfg.vocab_size)).all()),
+          "decoded tokens have the wrong shape or lie outside the vocab")
+    check(all(bool(torch.isfinite(l).all()) for l in res.logits)
+          and all(bool(torch.isfinite(l).all())
+                  for l in res.prefill_logits.values()),
+          "a logit is not finite")
+    norms = 2 * n_layers + 1
+    expected = {
+        "prefill/accurate": {"rmsnorm": norms, "flash_attention": n_layers,
+                             "decode_attention": 0},
+        "prefill/fast": {"rmsnorm": norms, "flash_attention": n_layers,
+                         "decode_attention": 0},
+        "decode": {"rmsnorm": norms * n_tok, "flash_attention": 0,
+                   "decode_attention": n_layers * n_tok},
+    }
+    check(res.launches == expected,
+          f"serve launches {res.launches}, expected {expected}")
+    check(totals == {"rmsnorm": norms * (2 + n_tok),
+                     "flash_attention": 2 * n_layers,
+                     "decode_attention": n_layers * n_tok},
+          f"serve launch totals {totals}")
+    for name, rung in res.rungs.items():
+        ms = res.decode_ms_per_token(name)
+        print(f"serve {name}: prefill {res.prefill_s[name] * 1e3:.1f} ms, "
+              f"decode {ms:.2f} ms/token, {batch * 1e3 / ms:.1f} tokens/s "
+              f"(batch {batch}, window {rung.sliding_window or 'full'}, kv "
+              f"{rung.kv_cache_dtype or rung.dtype})")
+
+    entries = []
+
+    def entry(name, source, replaces, key_desc, rec, out, ref, plain_ms,
+              fn, lib_fn, nbytes, ops, flops):
+        dtype = str(out.dtype).replace("torch.", "")
+        tol = MODEL_TOL[dtype]
+        err = float((out.float() - ref.float()).abs().max())
+        excess = float(((out.float() - ref.float()).abs()
+                        - tol * (1 + ref.float().abs())).max())
+        check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+              f"{name} {key_desc}: kernel differs from its plain version "
+              f"beyond {tol} (max abs err {err:.4g}, worst excess over "
+              f"the tolerance {excess:.4g})")
+        ms = cuda_ms(torch, fn, 20)
+        library_ms = cuda_ms(torch, lib_fn, 20)
+        bound_ms, bound_by = bound(nbytes, ops, flops)
+        entries.append({
+            "name": name, "cell": "serve", "shape": key_desc,
+            "dtype": dtype, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": rec["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+        print(f"serve: {name} {key_desc} x{rec['launches']}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{bound_ms / ms * 100:.2f}% of bound, max abs err {err:.3g} "
+              f"(tolerance {tol})")
+
+    for key, rec in records["rmsnorm"].items():
+        x, w, eps = rec["inputs"]
+        d = x.shape[-1]
+        rows = x.numel() // d
+        out = rmsnorm(x, w, eps=eps)
+        ref, plain_ms = timed_once(torch, lambda: rmsnorm_ref(x, w, eps=eps))
+        entry("rmsnorm", K3_SOURCE, K3_REPLACES, f"x {tuple(x.shape)}", rec,
+              out, ref, plain_ms, lambda: rmsnorm(x, w, eps=eps),
+              lambda: F.rms_norm(x, (d,), w, eps),
+              (2 * rows * d + d) * x.element_size(), 4 * rows * d,
+              FP32_FLOPS)
+
+    for key, rec in records["flash_attention"].items():
+        q, k, v = rec["inputs"]
+        causal, window = key[3], key[4]
+        b, h, s, hd = q.shape
+        pos = torch.arange(s, device=q.device)
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+        if window > 0:
+            mask &= pos[None, :] > pos[:, None] - window
+        visible = int(mask.sum())
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref, plain_ms = timed_once(torch, lambda: attention_ref(
+            q, k, v, causal=causal, window=window))
+        if window > 0:
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        entry("flash_attention", K4_SOURCE, K4_REPLACES,
+              f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+              f"{'causal' if causal else 'full'} window {window}", rec,
+              out, ref, plain_ms,
+              lambda: flash_attention(q, k, v, causal=causal, window=window),
+              lib, nbytes, 4 * b * h * visible * hd, BF16_FLOPS)
+
+    for key, rec in records["decode_attention"].items():
+        q, k, v, length = rec["inputs"]
+        b, h, hd = q.shape
+        s, kv = k.shape[1], k.shape[2]
+        n = min(int(length), s)
+        out = decode_attention(q, k, v, length)
+        ref, plain_ms = timed_once(
+            torch, lambda: decode_attention_ref(q, k, v, length))
+        valid = (torch.arange(s, device=q.device) < length)[None, None, None]
+        lib = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=valid, enable_gqa=True)
+        nbytes = (2 * b * n * kv * hd + 2 * b * h * hd) * q.element_size()
+        entry("decode_attention", K5_SOURCE, K5_REPLACES,
+              f"q {tuple(q.shape)} cache {tuple(k.shape)} length {n}", rec,
+              out, ref, plain_ms,
+              lambda: decode_attention(q, k, v, length), lib, nbytes,
+              4 * b * h * n * hd, BF16_FLOPS)
+
+    for name, rec_by in records.items():
+        check(len(rec_by) > 0 and sum(r["launches"] for r in rec_by.values())
+              == totals[name], f"{name}: recorded launches do not add up")
+
+    # K4 against K5 through the model, on the accurate rung, in bf16 and in
+    # an fp32 copy
+    torch.backends.cuda.matmul.allow_tf32 = False      # fp32 GEMMs in fp32
+    m32 = Model(dataclasses.replace(cfg, dtype="float32")).init(SERVE["seed"])
+    for model, limit in ((res.models["accurate"], CONSISTENCY_REL_RMS),
+                         (m32, CONSISTENCY_REL_RMS_FP32)):
+        rel, max_abs, agree = prefill_decode_gap(torch, model, res.prompt)
+        print(f"serve: {model.cfg.dtype} prefill + decode_step against "
+              f"prefill of one more token: relative RMS {rel:.4g} (limit "
+              f"{limit}), max abs {max_abs:.4g}, greedy tokens agree on "
+              f"{agree * 100:.0f}% of the batch")
+        check(rel <= limit, f"{model.cfg.dtype}: decode after prefill "
+                            f"differs from prefill by {rel:.4g} relative RMS")
+    return entries
 
 
 def main() -> int:

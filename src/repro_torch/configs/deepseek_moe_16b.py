@@ -1,0 +1,32 @@
+"""deepseek-moe-16b [moe]: 28L d_model=2048 16H (kv=16) d_ff=1408
+vocab=102400, 64 routed experts top-6 + 2 shared experts, fine-grained;
+first layer is a dense FFN (first_k_dense_replace=1).  [arXiv:2401.06066]
+"""
+
+from ..models.common import ModelConfig
+from ..models.registry import register_arch
+
+ARCH_ID = "deepseek-moe-16b"
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        arch_id=ARCH_ID,
+        family="moe",
+        num_layers=28,             # 1 dense + 27 MoE
+        d_model=2048,
+        num_heads=16,
+        num_kv_heads=16,           # MHA
+        head_dim=128,
+        d_ff=1408,                 # per routed expert
+        vocab_size=102400,
+        num_experts=64,
+        num_shared_experts=2,
+        moe_top_k=6,
+        first_dense_layers=1,
+        dense_ff=10944,            # the dense layer's FFN (paper table 2)
+        rope_theta=1.0e4,
+    )
+
+
+register_arch(ARCH_ID, config)

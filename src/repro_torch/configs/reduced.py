@@ -1,0 +1,54 @@
+"""Reduced variants of every assigned architecture for CPU smoke tests.
+
+Per the brief: same family, 2 layers, d_model <= 512, <= 4 experts.  The
+reduction preserves every structural feature that matters for coverage
+(GQA ratio, MoE routing with shared experts, SSM state, sLSTM interleave,
+enc-dec cross-attention, VLM prefix) while shrinking the compute so a full
+forward/train step runs in seconds on one CPU device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..models.common import ModelConfig
+from ..models.registry import get_config
+
+
+def reduced_config(arch_id: str, *, layers: int = 2) -> ModelConfig:
+    """A tiny, same-family variant of ``arch_id``."""
+    cfg = get_config(arch_id)
+    kv_ratio = cfg.num_heads // cfg.num_kv_heads
+    heads = 4
+    # keep the GQA ratio where possible (cap kv>=1)
+    kv = max(1, heads // min(kv_ratio, heads))
+    over: dict = dict(
+        num_layers=layers,
+        d_model=256,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=64,
+        d_ff=512 if cfg.d_ff else 0,
+        vocab_size=512,
+    )
+    if cfg.num_experts:
+        over.update(
+            num_experts=4,
+            moe_top_k=min(2, cfg.moe_top_k),
+            num_shared_experts=min(1, cfg.num_shared_experts),
+            first_dense_layers=min(1, cfg.first_dense_layers),
+            dense_ff=512 if cfg.dense_ff else 0,
+        )
+    if cfg.ssm_state:
+        over.update(ssm_state=8)
+    if cfg.slstm_every:
+        over.update(slstm_every=2)
+    if cfg.encoder_layers:
+        over.update(encoder_layers=layers)
+    if cfg.prefix_tokens:
+        over.update(prefix_tokens=8, prefix_dim=64)
+    elif cfg.prefix_dim:     # audio frames (no fixed token count)
+        over.update(prefix_dim=64)
+    if cfg.sliding_window:
+        over.update(sliding_window=16)
+    return dataclasses.replace(cfg, **over)

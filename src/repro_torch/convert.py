@@ -12,6 +12,12 @@ crosses into the port unchanged.  A workflow DAG's
 :class:`~repro_torch.serving.dag.PipelinePlan` (the DAG, its stages and
 the pipeline ladder) crosses the same way: :func:`plan_to_numpy` flattens
 it, :func:`pipeline_plan_from_numpy` rebuilds it.
+
+The model plane carries weights: :func:`model_params_from_numpy` loads the
+JAX package's parameter tree (as numpy arrays) into the port's
+:class:`~repro_torch.models.model.Model`, and a
+:class:`~repro_torch.models.common.ModelConfig` crosses as plain data
+through :func:`plan_to_numpy` / :func:`model_config_from_numpy`.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from .core.aqm import (
 )
 from .core.pareto import BatchProfile, LatencyProfile, ParetoPoint
 from .core.planner import DeploymentPlan
+from .models.common import ModelConfig
 from .serving.dag import (
     PipelinePlan,
     PipelinePolicy,
@@ -42,7 +49,7 @@ _TYPES: Dict[str, type] = {cls.__name__: cls for cls in (
     DeploymentPlan, AQMPolicyTable, SwitchingPolicy, HysteresisSpec,
     MixPolicyTable, MixPolicy, ParetoPoint, LatencyProfile, BatchProfile,
     PipelinePlan, PipelinePolicyTable, PipelinePolicy, WorkflowDAG,
-    StageSpec)}
+    StageSpec, ModelConfig)}
 
 _TYPE_KEY = "__type__"
 _DICT_KEY = "__items__"
@@ -56,7 +63,7 @@ def plan_to_numpy(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
         if name not in _TYPES:
-            raise TypeError(f"{name} is not part of a deployment plan")
+            raise TypeError(f"{name} cannot be carried across as plain data")
         out = {_TYPE_KEY: name}
         for f in dataclasses.fields(obj):
             out[f.name] = plan_to_numpy(getattr(obj, f.name))
@@ -115,3 +122,29 @@ def pipeline_plan_from_numpy(d: Dict[str, Any]) -> PipelinePlan:
         raise TypeError(f"plan data describes a {type(plan).__name__}, "
                         f"not a PipelinePlan")
     return plan
+
+
+def model_config_from_numpy(d: Dict[str, Any]) -> ModelConfig:
+    """The port's :class:`ModelConfig` from :func:`plan_to_numpy`'s plain
+    data of a model config (either package's)."""
+    cfg = _rebuild(d)
+    if not isinstance(cfg, ModelConfig):
+        raise TypeError(f"config data describes a {type(cfg).__name__}, "
+                        f"not a ModelConfig")
+    return cfg
+
+
+def model_params_from_numpy(tree: Dict[str, Any], model: Any,
+                            device: Any = None) -> Any:
+    """Load the JAX package's parameter tree of ``model``'s config, as numpy
+    arrays in its stacked layout (``{"embed": {...}, "decoder": [segment,
+    ...]}`` with segment leaves ``(repeat, count, ...)``), into the port's
+    ``model``; returns the model.  ``device``, when given, must be the
+    model's own: the weights are copied there and cast to its activation
+    dtype once."""
+    if device is not None:
+        from .device import resolve_device
+
+        if resolve_device(device) != model.device:
+            raise ValueError(f"model lives on {model.device}, not {device}")
+    return model.load_params(tree)

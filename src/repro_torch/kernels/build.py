@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -27,17 +27,29 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
 
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {"lindley_scan": "lindley_scan.cu",
-                           "chained_lindley": "chained_lindley.cu"}
+                           "chained_lindley": "chained_lindley.cu",
+                           "rmsnorm": "rmsnorm.cu",
+                           "flash_attention": "flash_attention.cu",
+                           "decode_attention": "decode_attention.cu"}
 
-NVCC_FLAGS = (
+# the model kernels' flags: floating-point contraction allowed (their
+# contract is allclose, and their products are multiply-adds)
+MODEL_NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "--fmad=false",
     "-Xptxas=-v",
     "-shared",
     "-Xcompiler=-fPIC",
 )
+
+# the Lindley kernels' flags: --fmad=false keeps them bit-equal to their
+# plain versions
+NVCC_FLAGS = MODEL_NVCC_FLAGS[:3] + ("--fmad=false",) + MODEL_NVCC_FLAGS[3:]
+
+FLAGS: Dict[str, Tuple[str, ...]] = {
+    name: NVCC_FLAGS if name in ("lindley_scan", "chained_lindley")
+    else MODEL_NVCC_FLAGS for name in SOURCES}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -60,7 +72,7 @@ def library_path(name: str) -> Path:
     """Where kernel ``name``'s library goes, keyed by source and flags."""
     src = CSRC_DIR / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes()
-                            + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+                            + "\0".join(FLAGS[name]).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -70,7 +82,7 @@ def _start(name: str) -> "subprocess.Popen | None":
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *FLAGS[name], "-o", str(tmp),
            str(CSRC_DIR / SOURCES[name])]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.chained_lindley import (chained_lindley_scan,
                                                  chained_lindley_scan_ref)
 from repro_torch.kernels.lindley_scan import (kw_chain, kw_chain_ref,
@@ -138,3 +142,128 @@ def test_pipeline_sweep_on_the_card_equals_the_host_engine(card, kind):
     assert chained_lindley_scan.launches > before[0]
     host = sweep_pipeline(dag, rungs, backend="numpy", **kw)
     assert dev == host
+
+
+# -- the model kernels (K3, K4, K5) ------------------------------------------
+# tolerances of tests/test_kernels.py: bf16 2e-2, fp32 2e-5
+
+
+def tol(dtype):
+    if dtype == torch.bfloat16:
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=2e-5, atol=2e-5)
+
+
+def randn(shape, dtype, device, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("rows,dim", [(1, 32), (7, 100), (16, 2048),
+                                      (300, 4097), (5, 16384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_version(card, rows, dim, dtype):
+    x = randn((rows, dim), dtype, card, rows + dim)
+    w = randn((dim,), dtype, card, 1)
+    before = rmsnorm.launches
+    out = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, w).float(),
+                               **tol(dtype))
+
+
+@pytest.mark.parametrize("s", [64, 100, 257])
+@pytest.mark.parametrize("heads,kv", [(4, 2), (4, 1), (2, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 40), (False, 33)])
+def test_flash_kernel_matches_plain_version(card, s, heads, kv, dtype,
+                                            causal, window):
+    b, hd = 2, 64
+    q = randn((b, heads, s, hd), dtype, card, s)
+    k = randn((b, kv, s, hd), dtype, card, s + 1)
+    v = randn((b, kv, s, hd), dtype, card, s + 2)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), **tol(dtype))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 512),
+                                           (False, 0)])
+def test_flash_kernel_matches_plain_version_at_serve_magnitudes(
+        card, causal, window):
+    # the serving path's q, k, v have entries of ~45 (its stacked weights
+    # draw at unit scale), so softmax rows are nearly one-hot and a few
+    # large values of v of opposite sign can nearly cancel
+    b, h, kv, s, hd = 2, 4, 2, 1030, 128
+    q, k, v = (45 * randn(shape, torch.float32, card, seed).to(torch.bfloat16)
+               for seed, shape in ((7, (b, h, s, hd)), (8, (b, kv, s, hd)),
+                                   (9, (b, kv, s, hd))))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("hd", [32, 128, 256])
+def test_flash_kernel_reads_strided_projections(card, hd):
+    # the model's (B, S, H, hd) projections, transposed, read in place
+    b, s, h, kv = 2, 190, 4, 2
+    q = randn((b, s, h, hd), torch.bfloat16, card, 3).transpose(1, 2)
+    k = randn((b, s, kv, hd), torch.bfloat16, card, 4).transpose(1, 2)
+    v = randn((b, s, kv, hd), torch.bfloat16, card, 5).transpose(1, 2)
+    out = flash_attention(q, k, v, causal=True, window=64)
+    assert out.stride() == q.stride()
+    ref = attention_ref(q, k, v, causal=True, window=64)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("s,length", [(64, 1), (100, 77), (2112, 2049),
+                                      (512, 512), (513, 0)])
+@pytest.mark.parametrize("heads,kv,hd", [(4, 2, 64), (4, 1, 64),
+                                         (16, 8, 128), (8, 8, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(card, s, length, heads, kv, hd,
+                                             dtype):
+    b = 3
+    q = randn((b, heads, hd), dtype, card, s)
+    k = randn((b, s, kv, hd), dtype, card, s + 1)
+    v = randn((b, s, kv, hd), dtype, card, s + 2)
+    if 0 < length < s:
+        k[:, length:] = 999.0
+        v[:, length:] = -999.0
+    n = torch.tensor(length, dtype=torch.int32, device=card)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, k, v, n)
+    torch.testing.assert_close(out.float(), ref.float(), **tol(dtype))
+
+
+def test_model_kernel_wrappers_reject_mixed_devices_and_dtypes(card):
+    x = randn((4, 64), torch.bfloat16, card, 0)
+    with pytest.raises(ValueError, match="share a device"):
+        rmsnorm(x, x[0].cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        rmsnorm(x.half(), x[0].half())
+    q = randn((1, 2, 16, 64), torch.bfloat16, card, 1)
+    with pytest.raises(ValueError, match="share a device"):
+        flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, q.float(), q.float())
+    qd = randn((1, 2, 64), torch.bfloat16, card, 2)
+    cache = randn((1, 16, 2, 64), torch.bfloat16, card, 3)
+    n = torch.tensor(5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="share a device"):
+        decode_attention(qd, cache, cache, n.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        decode_attention(qd, cache.float(), cache.float(), n)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(qd, cache, cache, n.long())

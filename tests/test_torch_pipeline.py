@@ -38,6 +38,12 @@ COPIES = [
     "core/pareto.py", "core/aqm.py", "core/elastico.py",
     "workflows/surrogate.py", "serving/workload.py", "serving/faults.py",
     "serving/scheduler.py", "serving/simulator.py",
+    "configs/__init__.py", "configs/base.py", "configs/reduced.py",
+    "configs/deepseek_moe_16b.py", "configs/granite_moe_3b_a800m.py",
+    "configs/hymba_1_5b.py", "configs/internlm2_1_8b.py",
+    "configs/llama3_405b.py", "configs/minitron_4b.py",
+    "configs/paligemma_3b.py", "configs/seamless_m4t_medium.py",
+    "configs/stablelm_3b.py", "configs/xlstm_1_3b.py",
 ]
 
 
